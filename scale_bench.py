@@ -1,9 +1,9 @@
 """End-to-end scale benchmark: simulate a multi-Mb genome, assemble it
 with the full CLI pipeline, and grade the result against the truth.
 
-Counterpart of the reference's isolate benchmark
-(/root/reference/README.md:139-148: E. coli MC4100, 28M reads, 42 min /
-16 cores) — the real dataset isn't in the image, so we simulate
+Counterpart of the reference's isolate benchmark (SPAdes README: E. coli
+MC4100, 28M reads, 42 min / 16 cores) — the real dataset is not
+available, so we simulate
 Illumina-like reads from a known genome and report wall-clock plus
 QUAST-style quality metrics (NG50, genome fraction, misassemblies).
 
@@ -30,7 +30,7 @@ def main(argv=None) -> int:
     ap.add_argument("--insert", type=float, default=300.0)
     ap.add_argument("--error-rate", type=float, default=0.002)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--out", default="/tmp/scale_bench")
+    ap.add_argument("--out", default=".smoke_work/scale_bench")
     ap.add_argument("--k", default=None, help="comma-separated K list")
     ap.add_argument("--only-assembler", action="store_true")
     ap.add_argument("--no-repeats", action="store_true")
@@ -38,26 +38,16 @@ def main(argv=None) -> int:
                     help="also write the result JSON to this file")
     args = ap.parse_args(argv)
 
+    from spades_for_blackbird_tpu.io import fastq
     from spades_for_blackbird_tpu.utils import assess, simulate
 
-    os.makedirs(args.out, exist_ok=True)
     t0 = time.time()
-    repeats = None if args.no_repeats else [
-        (2000, 3), (700, 4), (400, 6)]
-    genome = simulate.random_genome(args.genome_size, seed=args.seed,
-                                    repeats=repeats)
-    n_pairs = int(args.coverage * args.genome_size
-                  / (2 * args.read_len))
-    r1, q1, r2, q2 = simulate.simulate_paired_reads(
-        genome, n_pairs, read_len=args.read_len,
-        insert_mean=args.insert, insert_sd=args.insert / 12,
-        error_rate=args.error_rate, seed=args.seed + 1)
-    f1 = os.path.join(args.out, "reads_1.fastq.gz")
-    f2 = os.path.join(args.out, "reads_2.fastq.gz")
-    simulate.write_fastq(f1, r1, q1)
-    simulate.write_fastq(f2, r2, q2)
-    with open(os.path.join(args.out, "truth.fasta"), "w") as f:
-        f.write(">truth\n" + genome + "\n")
+    genome, f1, f2 = simulate.write_paired_library(
+        args.out, args.genome_size, coverage=args.coverage,
+        read_len=args.read_len, insert=args.insert,
+        error_rate=args.error_rate, seed=args.seed,
+        repeats=None if args.no_repeats else simulate.SCALE_REPEATS)
+    n_pairs = int(args.coverage * args.genome_size / (2 * args.read_len))
     t_sim = time.time() - t0
 
     from spades_for_blackbird_tpu import cli
@@ -75,21 +65,8 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": False, "rc": rc}))
         return rc
 
-    def read_fasta(path):
-        seqs, cur = [], []
-        with open(path) as f:
-            for line in f:
-                if line.startswith(">"):
-                    if cur:
-                        seqs.append("".join(cur))
-                    cur = []
-                else:
-                    cur.append(line.strip())
-        if cur:
-            seqs.append("".join(cur))
-        return seqs
-
-    contigs = read_fasta(os.path.join(run_dir, "contigs.fasta"))
+    contigs = fastq.read_sequences(
+        os.path.join(run_dir, "contigs.fasta"))[1]
     scaf_path = os.path.join(run_dir, "scaffolds.fasta")
     report = assess.assess(contigs, genome)
     out = {
@@ -102,7 +79,8 @@ def main(argv=None) -> int:
         "contigs": report.to_dict(),
     }
     if os.path.exists(scaf_path):
-        scaffolds = [s.replace("N", "") for s in read_fasta(scaf_path)]
+        scaffolds = [s.replace("N", "")
+                     for s in fastq.read_sequences(scaf_path)[1]]
         srep = assess.assess(scaffolds, genome)
         out["scaffolds"] = {"n50": srep.n50, "ng50": srep.ng50,
                             "misassemblies": srep.misassemblies}

@@ -1,6 +1,6 @@
 """Unitig condensation by pointer jumping over oriented (k+1)-mer edges.
 
-TPU-native replacement for the reference's serial unitig extraction
+Device-side replacement for the reference's serial unitig extraction
 (``UnbranchingPathExtractor::ExtractUnbranchingPaths`` at
 assembler/src/common/assembly_graph/construction/
 debruijn_graph_constructor.hpp:182-388, loop recovery at :306-345, and
@@ -55,11 +55,7 @@ def build_graph(kp1_table: KmerTable, vt: extension.VertexTable, k: int
     e_valid = jnp.arange(E) < kp1_table.num
     fwd = kp1_table.kmers
     rev = dna.revcomp_kmers(fwd, k + 1)
-    # interleave rows 2j=fwd[j], 2j+1=rev[j] WITHOUT a (E, 2, W) stack:
-    # XLA:TPU assigns the 3D intermediate a T(8,128) tiled layout that
-    # pads the size-2 axis to 128 (observed 64x HBM blowup at 31.6M
-    # rows — the round-2 1 Mb-run blocker); two gathers + select keep
-    # everything 2D.
+    # interleave rows 2j=fwd[j], 2j+1=rev[j]: two gathers + select
     half = jnp.arange(O) // 2
     odd = (jnp.arange(O) % 2) == 1
     ori = jnp.where(odd[:, None], rev[half], fwd[half])  # 2j / 2j+1

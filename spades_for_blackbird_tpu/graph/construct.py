@@ -1,6 +1,6 @@
 """End-to-end graph construction: reads -> condensed de Bruijn graph.
 
-TPU-native equivalent of the reference Construction stage
+Device-side equivalent of the reference Construction stage
 (assembler/src/common/stages/construction.cpp:469-484: KMerCounting ->
 ExtensionIndexBuilder -> GraphCondenser -> PHMCoverageFiller), fused into
 jit regions over device arrays.

@@ -1,6 +1,6 @@
 """Hamming-space k-mer clustering for read error correction.
 
-TPU-native replacement of BayesHammer's clustering machinery
+Device-side replacement of BayesHammer's clustering machinery
 (projects/hammer/hamcluster.cpp ``KMerHamClusterer``: tau sub-k-mer sorts
 feeding a concurrent disjoint-set union, + kmer_cluster.cpp Bayesian
 center finding):
@@ -65,8 +65,7 @@ def cluster_kmers(kmers: jax.Array, counts: jax.Array, num: jax.Array,
     sort passes, hamcluster.cpp): clear position p's 2 bits, sort the
     (N, W) masked keys, and min-propagate labels within equal-key runs.
     Memory stays O(N*W) — materializing all k variants at once is an
-    (N, k, W) tensor whose TPU tile padding explodes 6x (OOM at
-    N = 2^24).  Sequential per-position propagation with path
+    (N, k, W) tensor, k times the table.  Sequential per-position propagation with path
     compression converges in far fewer outer rounds than the batch
     variant (Gauss-Seidel vs Jacobi), so n_rounds=2 suffices.
 

@@ -1,6 +1,6 @@
 """IonTorrent homopolymer-space read correction (IonHammer equivalent).
 
-TPU-native counterpart of projects/ionhammer (8.9k LoC: HKMer counting,
+Device-side counterpart of projects/ionhammer (8.9k LoC: HKMer counting,
 gamma-Poisson run-length model, SW read corrector): IonTorrent's dominant
 error mode is homopolymer run-length miscalls, so correction happens in
 homopolymer-compressed space:

@@ -3,7 +3,7 @@
 The reference ships curated graph fragments for its simplification unit
 tests in an old ``.grp/.sqn/.cvr/.flcvr`` text format, parsed by a
 test-only reader (src/test/debruijn/graphio.cpp:36-266 ``LegacyTextIO``).
-This module reads the same format into the TPU relational ``Graph`` so
+This module reads the same format into the relational ``Graph`` so
 the reference's fixture-driven simplification tests can run against our
 cleaners (simplification_test.cpp:147-340).
 

@@ -7,7 +7,7 @@ the error-laden k-mer table shrinks before graph capacity is committed
 (Construction's EarlyTipClipper phase, stages/construction.cpp:292-318;
 length bound defaults to RL - K).
 
-TPU-native formulation: instead of per-junction walks under OpenMP, the
+Device-side formulation: instead of per-junction walks under OpenMP, the
 whole (k+1)-mer multiset contracts into unique-in/unique-out chains by
 pointer jumping (the same machinery graph condensation uses,
 graph/pointer_jump.py), then every chain is classified at once:

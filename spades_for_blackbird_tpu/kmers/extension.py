@@ -1,6 +1,6 @@
 """Extension index: canonical k-mer vertex table with in/out nucleotide masks.
 
-TPU-native equivalent of the reference's ``DeBruijnExtensionIndex`` /
+Device-side equivalent of the reference's ``DeBruijnExtensionIndex`` /
 ``InOutMask`` (assembler/src/common/utils/extension_index/
 kmer_extension_index.hpp:42-200) and its builder
 (kmer_extension_index_builder.hpp:19-110): from the unique (k+1)-mer table,
@@ -78,8 +78,7 @@ def kplus1_prefix_suffix(kp1: jax.Array, k: int
     last = dna.kmer_last_base(kp1, k + 1)
     # word-level bit surgery instead of unpack->slice->repack: the
     # unpacked (N, 16*W1) uint32 intermediates are ~64 bytes/row x two
-    # packs — multi-GB device temporaries at multi-Mb (k+1)-mer tables
-    # (the k55 rung's W=4 build crashed the remote TPU worker on them).
+    # packs — multi-GB device temporaries at multi-Mb (k+1)-mer tables.
     # Layout (ops/dna.pack_kmers): base j of word w at bits
     # (15 - j) * 2 .. +1, base 0 in the high bits, pad bases zero.
     import numpy as np

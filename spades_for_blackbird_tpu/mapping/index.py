@@ -1,6 +1,6 @@
 """Edge k-mer index: canonical k-mer -> (edge, offset, strand).
 
-TPU-native replacement for the reference's edge-position index
+Device-side replacement for the reference's edge-position index
 (assembly_graph/index/edge_position_index.hpp ``KmerStoringEdgeIndex`` +
 the graph-attached ``EdgeIndex`` handler, modules/alignment/edge_index.hpp:29):
 a sorted multi-word-key array over all k-mers of all alive edges, looked up

@@ -1,6 +1,6 @@
 """Long-read-to-graph alignment: seed -> diagonal-chain -> edge path.
 
-TPU-native replacement of the reference's sensitive long-read aligner
+Device-side replacement of the reference's sensitive long-read aligner
 (modules/alignment/pacbio/g_aligner.{hpp,cpp} ``GAligner::GetReadAlignment``
 -> ``OneReadMapping``, clustered seed index at pac_index.hpp, gap closing
 between seed clusters at gap_dijkstra.cpp): seed k-mer hits for the whole

@@ -1,6 +1,6 @@
 """Batch read-to-graph mapping.
 
-TPU-native replacement of ``BasicSequenceMapper``/``SequenceMapperNotifier``
+Device-side replacement of ``BasicSequenceMapper``/``SequenceMapperNotifier``
 (modules/alignment/sequence_mapper.hpp:288,
 sequence_mapper_notifier.hpp:25-100): instead of an OpenMP loop handing
 each read to listeners, ALL reads map at once — every read k-mer is

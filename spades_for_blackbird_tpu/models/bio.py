@@ -1,6 +1,6 @@
 """biosyntheticSPAdes: domain extraction, restricted edges, domain graph.
 
-TPU-native counterparts of the bio(synthetic) mode stages:
+Device-side counterparts of the bio(synthetic) mode stages:
 
 - :func:`extract_domains` — ``ExtractDomains``
   (projects/spades/extract_domains.cpp + domain_matcher.cpp:36-110):

@@ -1,6 +1,6 @@
 """Plasmid extraction: iterative chromosome removal + circularity.
 
-TPU-native counterpart of plasmidSPAdes' ChromosomeRemover
+Device-side counterpart of plasmidSPAdes' ChromosomeRemover
 (common/modules/chromosome_remover.cpp):
 
 - ``run_isolated_pipeline`` — RunIsolatedPipeline (chromosome_remover.cpp:409-432):

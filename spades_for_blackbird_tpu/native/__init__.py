@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; the host-side runtime around it
+The compute path is JAX/XLA; the host-side runtime around it
 (data ingest, and over time other IO-bound pieces) is C++ like the
 reference's (SURVEY.md §2.2). Libraries build lazily with g++ on first
 use and fall back to pure-Python implementations when a toolchain is

@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ(.gz) -> 2-bit-code tensor ingest.
 //
-// TPU-native framework's counterpart of the reference's C++ read streams
+// Device-side framework's counterpart of the reference's C++ read streams
 // (assembler/src/common/io/reads/fasta_fastq_gz_parser.hpp kseq parser +
 // binary read store, io/reads/binary_converter.hpp:25). The hot loop
 // parses gzipped FASTQ and packs bases straight into the padded uint8

@@ -1,6 +1,6 @@
 """Batched banded alignment kernels.
 
-TPU-native replacement for the reference's per-read edit-distance code in
+Device-side replacement for the reference's per-read edit-distance code in
 the sensitive long-read aligner (modules/alignment/pacbio/gap_dijkstra.cpp
 custom Dijkstra with edit distance, ext/edlib, ext/ssw local alignment):
 a whole batch of sequence pairs aligns at once with a

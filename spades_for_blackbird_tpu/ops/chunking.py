@@ -2,7 +2,7 @@
 
 Python-level slicing of device arrays (``arr[lo:hi]``) bakes the offset
 into the HLO, so every chunk offset becomes a distinct single-op
-compile — ruinous when compiles go through a slow remote service.  The
+compile.  The
 helpers here slice with a TRACED start index via
 ``lax.dynamic_slice_in_dim`` inside one jit, so a whole chunk loop
 reuses a single compiled slice (and one pad) per array shape.

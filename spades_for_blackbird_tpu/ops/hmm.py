@@ -1,6 +1,6 @@
-"""Batched profile-HMM Viterbi on TPU.
+"""Batched profile-HMM Viterbi on the device.
 
-TPU-native replacement of the vendored HMMER pipeline used by
+Device-side replacement of the vendored HMMER pipeline used by
 biosyntheticSPAdes (``hmmer::HMMMatcher`` in common/hmm/hmmmatcher.cpp
 wrapping ext/hmmer, driven by projects/spades/domain_matcher.cpp): a
 plan7-style local Viterbi where

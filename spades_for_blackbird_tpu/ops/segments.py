@@ -1,10 +1,10 @@
 """Sorted-multiset machinery: multi-word sort, run-length unique/count, compaction.
 
-This is the TPU-native replacement for the reference's out-of-core k-mer
+This is the device-side replacement for the reference's out-of-core k-mer
 counting machine (``KMerDiskCounter`` at
 assembler/src/common/utils/kmer_mph/kmer_index_builder.hpp:220-366: hash
 bucket files -> per-bucket sort -> loser-tree merge) and its perfect-hash
-maps (utils/ph_map/perfect_hash_map.hpp:78). On TPU the whole dataset lives
+maps (utils/ph_map/perfect_hash_map.hpp:78). Here the whole dataset lives
 in device arrays: counting is one lexicographic sort plus a segmented
 reduce, and "index lookup" is binary search into the sorted array.
 
@@ -108,20 +108,6 @@ def count_sorted(keys: jax.Array, valid: jax.Array,
     skeys, spayloads, svalid = sort_by_key_rows(keys, payloads, valid)
     w = spayloads[0] if weights is not None else None
     uniq, counts, _, num_unique = unique_counts(skeys, svalid, w)
-    return uniq, counts, num_unique
-
-
-def count_sorted_cols(cols: list, valid: jax.Array):
-    """count_sorted for column-major keys (the fused TPU extractor's
-    layout): ``cols`` = W arrays of shape (N,), validity folded into the
-    all-ones sentinel per column (caller guarantees sentinel safety).
-    Avoids materializing the interleaved (N, W) row layout before the
-    sort — the sort operands ARE the columns."""
-    scols = [jnp.where(valid, c, jnp.uint32(0xFFFFFFFF)) for c in cols]
-    out = jax.lax.sort(scols, num_keys=len(scols), is_stable=False)
-    skeys = jnp.stack(out, axis=1)
-    svalid = ~jnp.all(skeys == jnp.uint32(0xFFFFFFFF), axis=1)
-    uniq, counts, _, num_unique = unique_counts(skeys, svalid, None)
     return uniq, counts, num_unique
 
 

@@ -10,7 +10,7 @@ O(k-mer-space) arrays:
    contiguous block of oriented (k+1)-mer instances (global id =
    shard * 2L + local). The three table lookups of the single-shard
    builder (suffix junction vertex, prefix vertex, next-edge) become
-   *routed queries*: keys go to their hash-owner shard over ICI, the
+   *routed queries*: keys go to their hash-owner shard, the
    owner answers its local sorted partition, replies route back on a
    second all_to_all and un-permute to request order. This replaces the
    reference's shared-memory perfect-hash probes
@@ -20,8 +20,8 @@ O(k-mer-space) arrays:
    arrays feed the SAME ``contract_and_materialize`` program as the
    single-chip path (graph/condense.py), jitted with inputs sharded
    over the mesh — XLA inserts the collectives for the pointer-jumping
-   gathers. Per-round collective payload is O(N) int32 over ICI (the
-   scaling-book recipe); no array ever round-trips through the host.
+   gathers. Per-round collective payload is O(N) int32; no array ever
+   round-trips through the host.
 
 The resulting Graph's unitig numbering depends on the partition layout,
 so equality against the single-chip build is checked on the canonical
@@ -137,8 +137,7 @@ def make_sharded_graph_builder(mesh: Mesh, k: int,
         fwd = kp1_kmers
         rev = dna.revcomp_kmers(fwd, k + 1)
         W1 = fwd.shape[1]
-        # 2-gather interleave; a (L, 2, W) stack gets a T(8,128) tiled
-        # layout on TPU that pads the size-2 axis to 128 (64x HBM)
+        # 2-gather interleave, the same as graph/condense.py
         half = jnp.arange(2 * L) // 2
         odd = (jnp.arange(2 * L) % 2) == 1
         ori = jnp.where(odd[:, None], rev[half], fwd[half])

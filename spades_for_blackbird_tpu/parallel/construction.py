@@ -6,7 +6,7 @@ kmer_extension_index_builder.hpp:45-60): every (k+1)-mer shard emits two
 (k-mer, mask-bit) records (prefix gets an out bit, suffix an in bit,
 both redirected through canonicalization exactly as in
 kmers/extension.py); records route to their owner chip by k-mer hash via
-``all_to_all`` over ICI; each owner sort-reduces its partition into a
+``all_to_all``; each owner sort-reduces its partition into a
 hash-partitioned canonical VertexTable shard.
 
 The payload rides *inside* the exchanged rows: a record is

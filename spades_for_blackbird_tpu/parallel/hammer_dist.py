@@ -3,13 +3,13 @@
 The reference parallelizes hammer with OpenMP inside one shared-memory
 node (projects/hammer/main.cpp:64 omp counting, kmer_data.cpp
 KMerDataCounter's locked Merge, expander.cpp's parallel read loop). The
-TPU-native equivalent shards the READ axis over the mesh and keeps the
+device-side equivalent shards the READ axis over the mesh and keeps the
 k-mer table replicated:
 
 1. **table**: each shard counts its reads locally (one fused sort),
    pow2-trims, ``all_gather``s the per-shard tables and merges them
    identically on every device — a replicated global sorted table
-   (the all_gather rides ICI; table bytes are ~1% of read bytes);
+   (table bytes are ~1% of read bytes);
 2. **stats**: each shard scatter-adds its instances' quality stats into
    final-size accumulators via sorted-table lookup (the two-pass design
    of hammer/bayes.py), then one ``psum`` replicates the totals — the

@@ -1,11 +1,11 @@
 """Sharded k-mer counting: hash-partitioned all-to-all over the mesh.
 
-TPU-native replacement for the reference's out-of-core bucket machinery
+Device-side replacement for the reference's out-of-core bucket machinery
 (``KMerDiskCounter`` hash-segment file buckets,
 utils/kmer_mph/kmer_index_builder.hpp:220-366 + kmer_buckets.hpp:15-44):
 instead of fanning k-mers into disk files by hash segment, each chip
 extracts k-mers from its read shard, routes them to their owner chip by
-k-mer hash via ``all_to_all`` over ICI, and each owner sort-counts its
+k-mer hash via ``all_to_all``, and each owner sort-counts its
 partition locally. The result is a globally partitioned sorted k-mer
 table: shard i holds exactly the k-mers with ``hash % D == i``.
 """

@@ -1,6 +1,6 @@
 """Sharded read mapping + paired-info fill over a device mesh.
 
-TPU-native replacement for the reference's core parallel engine — the
+Device-side replacement for the reference's core parallel engine — the
 read-processing fan-out of ``SequenceMapperNotifier``
 (assembler/src/common/modules/alignment/sequence_mapper_notifier.hpp:25-100:
 an OpenMP loop over binary read chunks, per-thread listener buffers,

@@ -1,11 +1,14 @@
 """Device mesh helpers for multi-chip sharding.
 
-The reference is OpenMP shared-memory only (SURVEY.md §2.13); the
-TPU-native scaling axes are:
-- ``reads`` (data parallel): read batches sharded across chips/hosts,
+The reference is OpenMP shared-memory only (SURVEY.md §2.13); here the
+scaling axes are:
+- ``reads`` (data parallel): read batches sharded across devices,
 - ``kmer space``: hash-partitioned k-mer ownership with all_to_all
-  exchange over ICI (the analogue of the reference's hash-segment disk
-  buckets, utils/kmer_mph/kmer_buckets.hpp:15-44).
+  exchange between devices (the analogue of the reference's
+  hash-segment disk buckets, utils/kmer_mph/kmer_buckets.hpp:15-44).
+
+The mesh is 1-D over every visible device: cards joined all to all
+(NVLink) need no torus shape.
 """
 
 from __future__ import annotations
@@ -44,11 +47,11 @@ def shard_reads(mesh: Mesh, codes, lengths):
 def auto_mesh() -> Mesh | None:
     """Mesh over all devices when more than one is visible, else None.
 
-    Set ``SFB_TPU_FORCE_SINGLE_DEVICE=1`` to disable the distributed
+    Set ``SFB_FORCE_SINGLE_DEVICE=1`` to disable the distributed
     paths (used by equality tests comparing sharded vs single-device
     output)."""
     import os
-    if os.environ.get("SFB_TPU_FORCE_SINGLE_DEVICE") == "1":
+    if os.environ.get("SFB_FORCE_SINGLE_DEVICE") == "1":
         return None
     if len(jax.devices()) <= 1:
         return None

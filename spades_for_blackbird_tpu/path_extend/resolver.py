@@ -1,6 +1,6 @@
 """Repeat resolution: paired-info-guided path extension (exSPAnder).
 
-TPU-native counterpart of the reference's path_extend module
+Device-side counterpart of the reference's path_extend module
 (modules/path_extend/pipeline/launcher.cpp:599 ``PathExtendLauncher``,
 ``CompositeExtender::GrowAllPaths`` at path_extenders.cpp:32-75), with the
 full scoring stack ported faithfully:

@@ -10,7 +10,7 @@ scaffold_graph_visualizer.hpp; driven from
 modules/path_extend/pipeline/launcher.cpp:57-110 (ConstructScaffoldGraph
 + PrintScaffoldGraph).
 
-TPU-native shape: instead of std::set / unordered_multimap storages, the
+Device-side shape: instead of std::set / unordered_multimap storages, the
 scaffold graph is a relational struct-of-arrays table (src, dst, color,
 weight, gap) over plain edge-row ids, sorted by src for binary-search
 adjacency.  Connection conditions are vectorized numpy filters over the

@@ -1,6 +1,6 @@
 """Gap closing: join dead-end edge pairs supported by read pairs.
 
-TPU-native counterpart of the reference's GapClosing stage
+Device-side counterpart of the reference's GapClosing stage
 (projects/spades/gap_closer.cpp ``GapCloserPairedIndexFiller``:25 +
 ``GapCloser``:170): mate pairs whose ends map onto two different
 dead-end edges witness that the edges are adjacent; the joint is made by

@@ -1,6 +1,6 @@
 """Mismatch correction: majority-vote polishing of graph edge sequences.
 
-TPU-native replacement of the reference's MismatchCorrection stage
+Device-side replacement of the reference's MismatchCorrection stage
 (projects/spades/mismatch_correction.cpp:98-420 ``MismatchShallNotPass``,
 run under --careful): map all reads onto the graph, accumulate per-base
 votes over every edge position in one scatter-add, fold votes across

@@ -1,6 +1,6 @@
 """Stage framework with per-stage checkpointing.
 
-TPU-native equivalent of the reference's in-process stage pipeline
+Device-side equivalent of the reference's in-process stage pipeline
 (common/pipeline/stage.hpp:24-194 ``StageManager``/``AssemblyStage`` +
 ``SavesPolicy``, driver loop at pipeline/stage.cpp:143-203) and its
 ``GraphPack`` heterogeneous container (pipeline/graph_pack.hpp:16):

@@ -1,6 +1,6 @@
 """Graph-based erroneous-connection threshold finder.
 
-TPU-native port of the reference's uneven-coverage fallback
+Device-side port of the reference's uneven-coverage fallback
 (modules/simplification/ec_threshold_finder.hpp:25
 ``ErroneousConnectionThresholdFinder``), consumed by GenomicInfoFiller
 when ``uneven_depth`` is set (common/stages/genomic_info_filler.cpp:31-45

@@ -1,6 +1,6 @@
 """Batch simplification passes: tips, parallel bulges, erroneous connections.
 
-TPU-native equivalents of the reference's simplification algorithms
+Device-side equivalents of the reference's simplification algorithms
 (assembler/src/common/modules/simplification/tip_clipper.hpp:21-277,
 bulge_remover.hpp, erroneous_connection_remover.hpp), restructured from
 sequential smart-iterator mutation to whole-graph masked passes:

@@ -1,6 +1,6 @@
 """Simplification orchestration: iterative tips/bulges/EC to a fixed point.
 
-TPU-native counterpart of the reference's GraphSimplifier
+Device-side counterpart of the reference's GraphSimplifier
 (assembler/src/common/stages/simplification.cpp:47-407: InitialCleaning ->
 cycle of {tip, bulge, EC} with iterative coverage thresholds x
 cycle_iter_count -> PostSimplification), with parameter semantics from

@@ -16,6 +16,7 @@ Properties format (same shape as the reference's log.properties):
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -85,6 +86,19 @@ def configure(properties_path: str | None = None,
         cfg.writers = list(writers)
     global _config
     _config = cfg
+
+
+@contextlib.contextmanager
+def configured(**kwargs):
+    """``configure(**kwargs)`` for the duration of a ``with`` block; the
+    previous configuration, writers included, is back on exit."""
+    global _config
+    prev = _config
+    configure(**kwargs)
+    try:
+        yield
+    finally:
+        _config = prev
 
 
 def add_writer(writer) -> None:

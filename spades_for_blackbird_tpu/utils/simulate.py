@@ -112,3 +112,35 @@ def write_fastq(path: str, reads: list[str], quals: list[str],
     with op(path, "wt") as f:
         for i, (r, q) in enumerate(zip(reads, quals)):
             f.write(f"@{prefix}_{i}\n{r}\n+\n{q}\n")
+
+
+# planted repeats of the scale input: long enough to tangle every rung of
+# the default K ladder (21, 33, 55)
+SCALE_REPEATS = [(2000, 3), (700, 4), (400, 6)]
+
+
+def write_paired_library(out_dir: str, genome_size: int,
+                         coverage: float = 40.0, read_len: int = 100,
+                         insert: float = 300.0, error_rate: float = 0.002,
+                         seed: int = 7,
+                         repeats: list[tuple[int, int]] | None = SCALE_REPEATS
+                         ) -> tuple[str, str, str]:
+    """Simulate a genome and one FR paired library at ``coverage``.
+
+    Writes ``reads_1.fastq``, ``reads_2.fastq`` and ``truth.fasta`` into
+    ``out_dir``. Returns (genome, path_1, path_2).
+    """
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    genome = random_genome(genome_size, seed=seed, repeats=repeats)
+    n_pairs = int(coverage * genome_size / (2 * read_len))
+    r1, q1, r2, q2 = simulate_paired_reads(
+        genome, n_pairs, read_len=read_len, insert_mean=insert,
+        insert_sd=insert / 12, error_rate=error_rate, seed=seed + 1)
+    f1 = os.path.join(out_dir, "reads_1.fastq")
+    f2 = os.path.join(out_dir, "reads_2.fastq")
+    write_fastq(f1, r1, q1)
+    write_fastq(f2, r2, q2)
+    with open(os.path.join(out_dir, "truth.fasta"), "w") as f:
+        f.write(">truth\n" + genome + "\n")
+    return genome, f1, f2

@@ -1,6 +1,6 @@
 """End-to-end single-K assembly of the bundled toy E. coli 1K dataset.
 
-The TPU equivalent of ``spades.py --test`` (reference
+The equivalent of ``spades.py --test`` (reference
 assembler/test_dataset/, wiring at spades_pipeline/options_parser.py:1007):
 assembling at K=33 must reproduce the 1000 bp reference fragment exactly
 (single contig, up to strand).

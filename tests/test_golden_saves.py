@@ -1,6 +1,6 @@
 """Golden-saves regression harness.
 
-TPU-native equivalent of the reference's etalon-saves comparison
+Device-side equivalent of the reference's etalon-saves comparison
 (src/test/teamcity/teamcity.py:86-93 ``detect_diffs.sh`` /
 ``compare_saves.sh``): run the toy E. coli 1K pipeline with
 ``--checkpoints all``, fingerprint every per-stage checkpoint

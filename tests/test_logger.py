@@ -47,3 +47,14 @@ def test_bad_level_raises():
     import pytest
     with pytest.raises(ValueError):
         logmod.parse_level("chatty")
+
+
+def test_cli_restores_writers_after_bad_input(tmp_path):
+    from spades_for_blackbird_tpu import cli
+    missing = str(tmp_path / "missing.fq")
+    out = tmp_path / "out"
+    assert cli.main(["-1", missing, "-2", missing, "-o", str(out)]) == 2
+    # the run's spades.log writer is gone: logging afterwards neither
+    # writes to the closed file nor raises
+    logmod.get_logger("pipeline").info("after the run")
+    assert "after the run" not in (out / "spades.log").read_text()

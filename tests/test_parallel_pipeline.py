@@ -41,11 +41,11 @@ def _canon_contigs(items):
 
 
 def _single_device(fn):
-    os.environ["SFB_TPU_FORCE_SINGLE_DEVICE"] = "1"
+    os.environ["SFB_FORCE_SINGLE_DEVICE"] = "1"
     try:
         return fn()
     finally:
-        del os.environ["SFB_TPU_FORCE_SINGLE_DEVICE"]
+        del os.environ["SFB_FORCE_SINGLE_DEVICE"]
 
 
 def test_assemble_single_k_sharded_matches():

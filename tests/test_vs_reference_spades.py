@@ -7,12 +7,12 @@ through the full pipeline (BayesHammer + K21,33,55 + repeat resolution);
 its contigs/scaffolds are committed under
 tests/goldens/reference_spades_1k/ (see PROVENANCE.txt).
 
-These tests assert the TPU assembler MATCHES OR BEATS the stored
+These tests assert this assembler MATCHES OR BEATS the stored
 reference output on the same reads by the assessment metrics that
 matter (genome fraction, largest contig, misassembly-free placement) —
 the "matching-or-beating" criterion of BASELINE.md made executable.
 For the record: the reference emits 3 contigs (622 + 433 + 58 bp) on
-this dataset; the TPU pipeline reconstructs the full 1000 bp fragment
+this dataset; this pipeline reconstructs the full 1000 bp fragment
 as a single contig.
 """
 
@@ -103,6 +103,6 @@ def test_matches_or_beats_reference_contigs(our_contigs, truth):
 
 
 def test_beats_reference_contiguity(our_contigs, truth):
-    """The reference leaves the 1 kb fragment in 3 pieces; the TPU
+    """The reference leaves the 1 kb fragment in 3 pieces; this
     pipeline reconstructs it whole — strictly better contiguity."""
     assert max(map(len, our_contigs)) >= 1000 - 2  # full fragment
